@@ -26,7 +26,8 @@ import jax.numpy as jnp
 
 from fhe_fed_tpu import attack, models
 from fhe_fed_tpu.models import layers as ML
-from .common import append_jsonl, enable_compile_cache
+from fhe_fed_tpu.utils.compile_cache import enable_compile_cache
+from .common import append_jsonl
 
 enable_compile_cache()
 

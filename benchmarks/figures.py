@@ -88,12 +88,12 @@ def main(argv=None):
     ax.bar(x - 0.27, REF_FHE_S, 0.27, label="reference CPU (published)")
     ours_t = [ours[m]["total"] if m in ours else np.nan
               for m in REF_MODELS]
-    ax.bar(x, ours_t, 0.27, label="ours (TPU, staged)")
+    ax.bar(x, ours_t, 0.27, label="ours (staged)")
     thr_t = [thr_fused[m]["total"] if m in thr_fused else np.nan
              for m in REF_MODELS]
     if not all(np.isnan(v) for v in thr_t):
         ax.bar(x + 0.27, thr_t, 0.27,
-               label="ours (TPU, 3-party threshold fused round)")
+               label="ours (3-party threshold fused round)")
     ax.set_yscale("log")
     ax.set_xticks(x, REF_MODELS, rotation=45, ha="right")
     ax.set_ylabel("secure agg total (s)")
@@ -129,7 +129,7 @@ def main(argv=None):
                 "Comm": REF_PIE["Comm"]}
         axes[1].pie(list(vals.values()), labels=list(vals.keys()),
                     autopct="%1.1f%%")
-        axes[1].set_title("ours (TPU crypto phases)")
+        axes[1].set_title("ours (crypto phases)")
     fig.tight_layout()
     fig.savefig(os.path.join(args.out, "round_pie.pdf"))
     plt.close(fig)

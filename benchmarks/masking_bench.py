@@ -41,7 +41,8 @@ import numpy as np
 import jax
 
 from fhe_fed_tpu.fed.masking import Masking
-from .common import append_jsonl, rewrite_jsonl, enable_compile_cache
+from fhe_fed_tpu.utils.compile_cache import enable_compile_cache
+from .common import append_jsonl, rewrite_jsonl
 
 enable_compile_cache()
 

@@ -1,9 +1,9 @@
-"""fhe_fed_tpu — TPU-native secure federated aggregation (CKKS FedAvg).
+"""fhe_fed_tpu — secure federated aggregation (CKKS FedAvg) in JAX.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of the
-fhe-fed reference (FHE-based FedAvg over PALISADE-CKKS), designed TPU-first:
-uint32 RNS limbs, Shoup-multiplied NTT kernels, whole-model batched
-encrypt/aggregate/decrypt, and mesh-sharded aggregation.
+A from-scratch JAX/XLA reimplementation of the capabilities of the
+fhe-fed reference (FHE-based FedAvg over PALISADE-CKKS): uint32 RNS limbs,
+Shoup-multiplied NTTs, whole-model batched encrypt/aggregate/decrypt, and
+mesh-sharded aggregation.
 """
 
 from .fed.api import CKKS

@@ -8,11 +8,10 @@ client's training input from its shared gradients by optimizing dummy
 attack's success/failure under partial protection is what justifies the
 framework's selective-encryption mode (SURVEY.md C20/C23).
 
-TPU-native: the whole attack step — forward, backward, gradient-matching
-loss, and its second-order gradient — is one jitted function; the
-optimizer is optax (adam by default; the reference's LBFGS converges
-faster per step but each step is many closures — adam wins on TPU
-wall-clock).
+The whole attack step — forward, backward, gradient-matching loss, and
+its second-order gradient — is one jitted function; the optimizer is optax
+(adam by default; the reference's LBFGS converges faster per step but each
+step is many closures).
 """
 
 from __future__ import annotations
@@ -57,8 +56,8 @@ def model_gradients(apply: Callable, params, x: jnp.ndarray,
     (code.py:466-477). Returns a flat list of leaf gradients.
 
     Runs at full f32 matmul precision: a privacy evaluation must mount
-    the strongest attack, and TPU bf16 matmul defaults (which can change
-    with the platform's XLA version) silently break gradient matching —
+    the strongest attack, and reduced-precision matmul defaults (bf16 or
+    TF32, depending on the platform) silently break gradient matching —
     measured: LBFGS stalls at loss ~1e-5 / corr 0.12 under bf16 defaults
     vs 3e-10 / corr 0.98 at full precision on the same seeds."""
     with jax.default_matmul_precision("highest"):

@@ -1,7 +1,7 @@
 """Image-similarity metrics for attack evaluation: SSIM/MS-SSIM, UQI,
 VIFp (reference attack/similarity.py:24-42 uses the `sewar` package —
 absent here, so the metrics are implemented directly in numpy; host-side,
-not a TPU path).
+not a device path).
 
 All take (H, W) or (H, W, C) float arrays; channels are averaged.
 """

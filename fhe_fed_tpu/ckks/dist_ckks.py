@@ -2,9 +2,9 @@
 
 Round 2 proved the sharded four-step NTT as a building block (ntt/dist.py);
 this module runs the WHOLE encrypted round in that layout — encrypt ->
-fused weighted sum -> rescale -> decrypt — so rings larger than one chip's
-VMEM/HBM budget can span chips *inside the FedAvg pipeline* (SURVEY.md §7
-step 8, §5.8; the capability PALISADE's single-node OpenMP cannot express,
+fused weighted sum -> rescale -> decrypt — so rings larger than one
+device's memory budget can span devices *inside the FedAvg pipeline*
+(SURVEY.md §7 step 8, §5.8; the capability PALISADE's single-node OpenMP cannot express,
 reference ckks.cpp:70).
 
 Layout: a distributed ciphertext is uint32 (..., 2, L, N1, N2) where

@@ -1,4 +1,4 @@
-"""CKKS plaintext encoding for the TPU backend — exact integer paths.
+"""CKKS plaintext encoding — exact integer paths.
 
 Coefficient packing (the FedAvg workhorse): values go straight into
 polynomial coefficients. Addition and scalar multiplication — the only
@@ -20,7 +20,7 @@ are *exact* at any scale up to 2**80:
 Slot packing (canonical embedding) for ct x ct workloads lives in
 slots.py.
 
-No float64 anywhere: TPU-native.
+No float64 anywhere: every step is u32/i32/f32 arithmetic.
 Reference parity: MakeCKKSPackedPlaintext / GetRealPackedValue
 (ckks.cpp:80,198-204), with better precision than f64-based decode at
 scale 2**52.
@@ -29,10 +29,8 @@ scale 2**52.
 from __future__ import annotations
 
 import math
-import os
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from ..rns import modops
@@ -93,28 +91,15 @@ def decode_coeff(ctx: CkksContext, residues: jnp.ndarray,
                  scale: float) -> jnp.ndarray:
     """Decode residues (..., live, N) in coefficient order -> f32 (..., N).
 
-    Exact CRT + two-float division by `scale` (any positive float). The
-    XLA path is the default everywhere: the hand-fused Pallas kernel
-    (ckks/pallas_decode.py) measured SLOWER on TPU (3.17 ms vs 1.41 ms per
-    (204,4,8192) batch after the k*Q-multiply rewrite below) — XLA's own
-    fusion schedules this elementwise chain better than a 17 MB-scoped
-    kernel. Opt in with FHE_FED_TPU_FUSED_DECODE=1. The MXU byte-plane
-    variant (decode_core_mxu) is opt-in via FHE_FED_TPU_MXU_DECODE=1."""
+    Exact CRT + two-float division by `scale` (any positive float)."""
     live = residues.shape[-2]
     dc: DecodeConsts = ctx.dec_consts[live - 1]
-    if (residues.ndim == 3 and jax.default_backend() == "tpu"
-            and os.environ.get("FHE_FED_TPU_FUSED_DECODE")):
-        from . import pallas_decode
-        return pallas_decode.decode_fused(ctx, dc, residues, float(scale))
-    if os.environ.get("FHE_FED_TPU_MXU_DECODE"):
-        return decode_core_mxu(dc, ctx.q[:live], residues, scale)
     return decode_core(dc, ctx.q[:live], residues, scale)
 
 
 def decode_core(dc: DecodeConsts, qs, residues: jnp.ndarray,
                 scale: float) -> jnp.ndarray:
-    """The decode arithmetic on plain arrays — runs identically under XLA
-    and inside the Pallas kernel."""
+    """The decode arithmetic on plain arrays."""
     live = residues.shape[-2]
     nd = dc.ndig
 
@@ -123,8 +108,7 @@ def decode_core(dc: DecodeConsts, qs, residues: jnp.ndarray,
         qs[:, None])                                    # (..., live, N)
 
     # k = round(sum y_l / q_l): exact because |v| << Q (see module doc).
-    # u32 -> i32 -> f32: exact (y < q < 2**31) and Mosaic has no direct
-    # uint32->float32 cast.
+    # u32 -> i32 -> f32: exact (y < q < 2**31).
     fsum = jnp.sum(y.astype(_I32).astype(_F32) * dc.inv_q_f32[:, None],
                    axis=-2)
     k = jnp.round(fsum).astype(_I32)                    # (..., N), 0..live
@@ -150,64 +134,10 @@ def decode_core(dc: DecodeConsts, qs, residues: jnp.ndarray,
     return _planes_to_f32(dc, [p.astype(_I32) for p in planes], k, scale)
 
 
-def decode_core_mxu(dc: DecodeConsts, qs, residues: jnp.ndarray,
-                    scale: float) -> jnp.ndarray:
-    """decode_core with the digit-plane accumulation as ONE MXU matmul.
-
-    The VPU plane loop above does live x ndig 16-bit partial products per
-    coefficient; here sum_l y_l * M_l is instead computed in base-256:
-    split y into 4 bytes (..., live*4, N) and contract against the
-    precomputed byte matrix dc.m_bytes ((live*4, 2*ndig): row (l, i) /
-    col d8 = byte (d8 - i) of M_l), so
-
-        P[..., d8, :] = sum_{l,i} byte_i(y_l) * byte_{d8-i}(M_l)
-        sum_d8 P[d8] * 2**(8*d8) = sum_l y_l * M_l    (exactly)
-
-    Every product is <= 255*255 and there are live*4 <= 32 of them per
-    plane: |P| < 2**22, exact in the MXU's f32 accumulation, with bf16
-    operands (integers 0..255 are exact in bf16) on TPU / f32 elsewhere.
-    Byte-plane pairs then recombine into the same base-2**16 planes the
-    shared carry chain consumes. Same trick as the MXU NTT (ntt/mxu.py):
-    move the integer multiply burden from the VPU to the systolic array.
-    Bit-exact vs decode_core (tests/test_ckks.py::test_decode_mxu_exact).
-    """
-    live = residues.shape[-2]
-    nd = dc.ndig
-    # Exactness bound: each byte-plane entry is < live*4*255**2; the
-    # _planes_to_f32 contract (planes < 2**30) requires
-    # live*4*255**2 * 257 < 2**30, i.e. live <= 16. A deeper chain must
-    # fail loudly here instead of silently corrupting decode output.
-    assert live <= 16, (
-        f"decode_core_mxu supports at most 16 live limbs (got {live}): "
-        "byte-plane recombination would exceed the 2**30 plane bound")
-
-    y = modops.mul_mod_shoup(
-        residues, dc.punc_inv[:, None], dc.punc_inv_shoup[:, None],
-        qs[:, None])                                    # (..., live, N)
-    fsum = jnp.sum(y.astype(_I32).astype(_F32) * dc.inv_q_f32[:, None],
-                   axis=-2)
-    k = jnp.round(fsum).astype(_I32)                    # (..., N), 0..live
-
-    mm_dtype = (jnp.bfloat16 if jax.default_backend() == "tpu"
-                else jnp.float32)
-    b = jnp.stack([((y >> (8 * i)) & _U32(0xFF)).astype(_I32)
-                   for i in range(4)], axis=-2)         # (..., live, 4, N)
-    b = b.reshape(residues.shape[:-2] + (live * 4, residues.shape[-1]))
-    p = jnp.einsum("...kn,kd->...dn", b.astype(mm_dtype),
-                   dc.m_bytes.astype(mm_dtype),
-                   preferred_element_type=jnp.float32)  # (..., 2*nd, N)
-    p = p.astype(_I32)
-    planes = [p[..., 2 * d, :] + (p[..., 2 * d + 1, :] << 8)
-              for d in range(nd)]                       # each < 2**30
-    return _planes_to_f32(dc, planes, k, scale)
-
-
 def _planes_to_f32(dc: DecodeConsts, planes: list, k: jnp.ndarray,
                    scale: float) -> jnp.ndarray:
-    """Shared decode tail: digit planes (i32, each < 2**30, representing
-    sum_l y_l * M_l in base 2**16) + k -> centered value / scale as f32.
-    Used by both the VPU plane loop (decode_core) and the MXU byte-plane
-    matmul (decode_core_mxu)."""
+    """Decode tail: digit planes (i32, each < 2**30, representing
+    sum_l y_l * M_l in base 2**16) + k -> centered value / scale as f32."""
     nd = dc.ndig
 
     # w = acc + Q - k*Q  (>= 0, exact). k*Q's digit d is k * q_digits[d]

@@ -1,4 +1,4 @@
-"""Key generation and key containers for the TPU CKKS backend.
+"""Key generation and key containers for the CKKS backend.
 
 All key polynomials live in the NTT (evaluation) domain with precomputed
 Shoup companion words, so every key multiplication on the hot path is a

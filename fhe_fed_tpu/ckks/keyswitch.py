@@ -24,7 +24,7 @@ j < live and basis {q_0..q_{live-1}, P}. Key switch is then
 with flooring ModDown (subtract [u]_P, multiply by P^{-1} mod q_i) adding
 <= 1 units of noise per coefficient.
 
-TPU shape: every step is a batched elementwise op or an NTT over the limb
+Shape: every step is a batched elementwise op or an NTT over the limb
 axis; digit lifting is a single conditional subtraction because all primes
 are 31-bit (x < q_j < 2**31 < 2*q_i). The digit fan-out/accumulate is one
 fused reduction over the digit axis (modsum, 16-bit split accumulators).
@@ -85,16 +85,11 @@ def _ext_indices(ctx: CkksContext, live: int) -> np.ndarray:
 
 
 def _take_tables(tb: NttTables, idx: np.ndarray) -> NttTables:
-    # mxu= keeps the MXU digit-plane transform engaged for the extended
-    # basis — previously dropped here, silently demoting the key-switch's
-    # DOMINANT NTT batch (chunks x digits x ext limbs) to the ~5x-slower
-    # butterfly network (the r4 verdict's unprofiled-hot-kernel finding).
     return NttTables(
         ring_dim=tb.ring_dim, q=tb.q[idx],
         tab=tb.tab[idx], tab_shoup=tb.tab_shoup[idx],
         itab=tb.itab[idx], itab_shoup=tb.itab_shoup[idx],
-        ninv=tb.ninv[idx], ninv_shoup=tb.ninv_shoup[idx],
-        mxu=(None if tb.mxu is None else tb.mxu.take(idx)))
+        ninv=tb.ninv[idx], ninv_shoup=tb.ninv_shoup[idx])
 
 
 def make_kswitch_key(ctx: CkksContext, sk: SecretKey, target_hat: jnp.ndarray,

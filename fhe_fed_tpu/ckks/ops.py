@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import os
 
 import numpy as np
 import jax
@@ -166,8 +165,8 @@ class SeededCiphertext:
     too small for a collision-free wire guarantee, while a key PAIR
     collides only when both halves do (~2**128 space). JAX's threefry
     stream is platform-deterministic, so a ciphertext sealed on a CPU
-    client expands bit-identically on the TPU server (the 'rbg' session
-    PRNG is NOT used here for exactly that reason)."""
+    client expands bit-identically on a GPU server (the 'rbg' PRNG is not
+    platform-deterministic, so it is NOT used here)."""
     c0: jnp.ndarray                                      # (chunks, live, N)
     seed: jnp.ndarray                                    # (4,) uint32
     scale: float = dataclasses.field(metadata=dict(static=True))
@@ -358,7 +357,7 @@ def modsum_clients(terms: jnp.ndarray, qb: jnp.ndarray,
     """Modular sum over axis 0 (the client axis) via 16-bit split
     accumulation: the lo/hi half sums never overflow uint32 for up to 65536
     clients, and jnp.sum lowers to a native XLA reduction — which becomes a
-    psum over ICI when the client axis is mesh-sharded.
+    psum when the client axis is mesh-sharded.
 
     value = lo + hi * 2**16 with hi = a * 2**16 + b:
       value mod q = [lo]_q + [b << 16]_q + a * [2**32]_q.
@@ -432,16 +431,7 @@ def weighted_sum(ctx: CkksContext, cts, weights: list[float]) -> Ciphertext:
         stacked = jnp.stack([c.data for c in cts])
     w_res = jnp.asarray(np.stack(res_l))
     w_shoup = jnp.asarray(np.stack(shoup_l))
-    # Fused Pallas aggregation is opt-in: measured on v5e, XLA's split
-    # reduction is faster (4.5 ms vs 7.9 ms per bench round) — Mosaic's u32
-    # multiply lowering trails XLA's, as with the NTT kernels.
-    if (jax.default_backend() == "tpu" and ctx.ring_dim >= 256
-            and os.environ.get("FHE_FED_TPU_PALLAS")):
-        from . import pallas_agg
-        data = pallas_agg.weighted_sum_fused(
-            stacked, w_res, w_shoup, ctx.q[:live, None])
-    else:
-        data = _weighted_sum_impl(ctx, stacked, w_res, w_shoup)
+    data = _weighted_sum_impl(ctx, stacked, w_res, w_shoup)
     return Ciphertext(data=data, scale=scale0 * ds, level=level0)
 
 

@@ -8,7 +8,7 @@ MakeCKKSPackedPlaintext semantics (reference ckks.cpp:80, mkhe.cpp:341-366).
 
 Encode/decode run HOST-SIDE in numpy float64: packing happens at the
 client boundary next to data loading (exactly where the reference's CPU
-encode runs), so this is not on the TPU hot path; the device only ever sees
+encode runs), so this is not on the device hot path; the device only sees
 integer residues. f64 FFT precision (~2**-52 relative) is below CKKS noise
 at every parameter point the reference uses.
 

@@ -18,8 +18,8 @@ genCryptoContextAndKeyGen / loadCryptoParams file behavior
 
 Chunking follows ckks.cpp:65 (cipherSize = ceil(size / batchSize)) and the
 decrypt tail rule (ckks.cpp:192-196). `dense_pack=True` additionally packs
-the full ring (2x batch) per chunk — a TPU-side win the CPU reference
-doesn't offer (halves ciphertext count and bytes).
+the full ring (2x batch) per chunk — which the reference does not offer
+(halves ciphertext count and bytes).
 
 `packing` selects the plaintext encoding:
   * "coeff" (default) — exact-integer coefficient packing
@@ -83,7 +83,7 @@ class CKKS(Scheme):
         # sk in this protocol (they decrypt — ckks.cpp:11-23,189).
         self.symmetric = bool(symmetric)
         # seeded_fresh=True (implies symmetric): client uploads carry
-        # (c0, 64-bit seed) instead of (c0, c1) — HALF the wire bytes; the
+        # (c0, 128-bit seed) instead of (c0, c1) — HALF the wire bytes; the
         # server expands c1 = -PRG(seed) on arrival (ops.SeededCiphertext).
         # computeWeightedAverage accepts both formats regardless.
         self.seeded_fresh = bool(seeded_fresh)
@@ -95,15 +95,11 @@ class CKKS(Scheme):
         self._ctx = None
         self._sk = None
         self._pk = None
-        # Hot-path sampling PRNG: on TPU default to 'rbg' (XLA
-        # RngBitGenerator — the device-side seed-expansion PRG, ~1.5x
-        # faster encryption than threefry; PALISADE likewise expands a/e
-        # from a seeded DUG, ckks.cpp RLWE sampling). Override with
-        # FHE_FED_TPU_PRNG=threefry2x32 for the partitionable default.
-        impl = os.environ.get("FHE_FED_TPU_PRNG") or (
-            "rbg" if jax.default_backend() == "tpu" else "threefry2x32")
+        # Encrypt-side sampling PRNG, the same on every backend (threefry
+        # measured no slower than rbg on the GPU, PERF.md).
         self._rng = jax.random.key(
-            secrets.randbits(63) if seed is None else seed, impl=impl)
+            secrets.randbits(63) if seed is None else seed,
+            impl="threefry2x32")
 
     # -- context / key lifecycle ------------------------------------------
 

@@ -1,4 +1,4 @@
-"""MobileNet-v1 and ResNet-18/34/50, pure JAX (NHWC, MXU convs).
+"""MobileNet-v1 and ResNet-18/34/50, pure JAX (NHWC convs).
 
 Reference parity:
   mobilenet  3,315,428 trainable params at width=1, class_num=100

@@ -33,7 +33,7 @@ def gcn_init(key, nfeat: int = 1433, nhid: int = 16, nclass: int = 7):
 
 def gcn_apply(p, x, adj):
     """x: (N, F) node features, adj: (N, N) normalized adjacency
-    D^-1/2 (A+I) D^-1/2 (dense — TPU-friendly; Cora is 2708 nodes)."""
+    D^-1/2 (A+I) D^-1/2 (dense; Cora is 2708 nodes)."""
     h = jax.nn.relu(adj @ L.dense(p["conv1"], x))
     return jax.nn.log_softmax(adj @ L.dense(p["conv2"], h), axis=-1)
 
@@ -51,7 +51,7 @@ def normalize_adjacency(a: jnp.ndarray) -> jnp.ndarray:
 
 def sparsemax(z: jnp.ndarray, axis: int = -1) -> jnp.ndarray:
     """Sparsemax (Martins & Astudillo 2016): Euclidean projection onto the
-    simplex. Branch-free sort-based form — static shapes, TPU-friendly."""
+    simplex. Branch-free sort-based form — static shapes."""
     z_sorted = -jnp.sort(-z, axis=axis)
     k = jnp.arange(1, z.shape[axis] + 1, dtype=z.dtype)
     shape = [1] * z.ndim

@@ -8,9 +8,9 @@ reference's `sum(p.numel() for p in model.parameters())`
 average the full state_dict equivalent (params | state) like
 `plain_aggregate` does (code/benchmark.py:37-45).
 
-TPU-first conventions: NHWC conv layouts (XLA's native TPU layout),
-`lax.conv_general_dilated` for convolutions (MXU), `lax.scan` for
-recurrence, einsum attention (MXU), f32 params with optional bf16 compute.
+Conventions: NHWC conv layouts, `lax.conv_general_dilated` for
+convolutions, `lax.scan` for recurrence, einsum attention, f32 params with
+optional bf16 compute.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def conv_init(key, kh: int, kw: int, cin: int, cout: int,
 
 def conv2d(p: Params, x: jnp.ndarray, stride: int = 1, padding="SAME",
            groups: int = 1) -> jnp.ndarray:
-    """x: NHWC. Weight HWIO. Runs on the MXU."""
+    """x: NHWC. Weight HWIO."""
     out = lax.conv_general_dilated(
         x, p["w"], window_strides=(stride, stride), padding=padding,
         dimension_numbers=("NHWC", "HWIO", "NHWC"),
@@ -150,7 +150,7 @@ def lstm_layer_init(key, in_dim: int, hidden: int) -> Params:
 
 def lstm_layer(p: Params, xs: jnp.ndarray) -> jnp.ndarray:
     """xs: (B, T, in) -> (B, T, hidden). lax.scan over time (sequential
-    recurrence — XLA compiles the body once; gate matmuls hit the MXU)."""
+    recurrence — XLA compiles the body once)."""
     hidden = p["w_hh"].shape[0]
     B = xs.shape[0]
 
@@ -170,7 +170,7 @@ def lstm_layer(p: Params, xs: jnp.ndarray) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Multi-head attention (einsum, MXU-friendly)
+# Multi-head attention (einsum)
 # ---------------------------------------------------------------------------
 
 def mha_init(key, dim: int, out_dim: int | None = None) -> Params:

@@ -1,4 +1,4 @@
-"""ViT-base, BERT-base and GroupViT, pure JAX (einsum attention, MXU).
+"""ViT-base, BERT-base and GroupViT, pure JAX (einsum attention).
 
 Reference parity (code/benchmark.py:400-415: ViTModel(ViTConfig()),
 BertModel(BertConfig()), GroupViTModel(GroupViTConfig())) — trainable

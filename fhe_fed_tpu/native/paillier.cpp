@@ -1,6 +1,6 @@
 // Native Paillier compute kernels for the masking scheme's offline phase.
 //
-// TPU-framework analogue of the reference's C libpaillier + OpenMP blob
+// This framework's analogue of the reference's C libpaillier + OpenMP blob
 // loops (reference palisade_pybind/SHELFI_FHE/src/paillier.c:117-195,
 // src/PaillierUtils.cpp:366-492): the batch encrypt / homomorphic-sum /
 // decrypt of packed randomness blobs is the host-side hot path, so it is
@@ -13,7 +13,7 @@
 // Number layout over the C ABI: arrays of uint64_t little-endian limbs,
 // fixed width per context (k limbs for mod-n values, 2k for mod-n^2).
 //
-// Build: g++ -O2 -fopenmp -shared -fPIC paillier.cpp -o libpaillier_tpu.so
+// Build: g++ -O2 -fopenmp -shared -fPIC paillier.cpp -o libpaillier.so
 
 #include <cstdint>
 #include <cstring>

@@ -21,7 +21,7 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "paillier.cpp")
-_LIB = os.path.join(_DIR, "libpaillier_tpu.so")
+_LIB = os.path.join(_DIR, "libpaillier.so")
 
 _lib = None
 

@@ -1,10 +1,10 @@
 """Coefficient- and limb-sharded negacyclic NTT over a device mesh.
 
-The on-chip transform (ntt/ntt.py) keeps a whole ring on one chip. This
+The on-chip transform (ntt/ntt.py) keeps a whole ring on one device. This
 module removes that ceiling: RNS limbs and polynomial coefficients become
 real mesh axes ('limb', 'coeff'), and the NTT butterfly network is split so
-the single cross-device exchange rides one all-to-all over ICI — the
-TPU-native replacement for the reference's on-node OpenMP chunk loop
+the single cross-device exchange is one all-to-all — the sharded
+replacement for the reference's on-node OpenMP chunk loop
 (reference ckks.cpp:70; blueprint SURVEY.md §5.7-5.8, C11).
 
 Four-step (Bailey) decomposition, N = N1 * N2, coefficient n = N2*n1 + n2:
@@ -318,7 +318,7 @@ def _reshard(x, ds: DistSpec, to_row: bool):
     A bare with_sharding_constraint also works, but GSPMD propagates the
     target sharding back into the butterfly-stage reshapes and falls into
     'involuntary full rematerialization' (replicate-then-slice). Pinning the
-    exchange keeps it a single tiled all-to-all over ICI."""
+    exchange keeps it a single tiled all-to-all."""
     axis = ds.coeff_axis
     nd = x.ndim
     split = nd - 2 if to_row else nd - 1     # global axis being sharded next
@@ -350,7 +350,7 @@ def dist_ntt(x: jnp.ndarray, dt: DistNttTables, ds: DistSpec) -> jnp.ndarray:
     xt = _gs_last(xt, dt.f1, dt.f1_shoup, dt.q)
     x = _swap_last_two(xt)                               # (..., L, N1, N2)
     x = modops.mul_mod_shoup(x, dt.mid, dt.mid_shoup, q3)
-    # Reshard n2-sharded -> k1-sharded: one tiled all-to-all over ICI.
+    # Reshard n2-sharded -> k1-sharded: one tiled all-to-all.
     x = _reshard(x, ds, to_row=True)
     # Size-N2 DFT along n2 (now fully local per k1-row).
     return _gs_last(x, dt.f2, dt.f2_shoup, dt.q)

@@ -1,18 +1,25 @@
-"""Negacyclic NTT / inverse NTT over RNS limbs, vectorized for TPU.
+"""Negacyclic NTT / inverse NTT over RNS limbs, as a radix-2 butterfly
+network over the whole batch.
 
 Layout: polynomials are uint32 arrays of shape (..., L, N) — leading batch
 dims (ciphertext chunks, ct components), then RNS limb, then coefficient.
 Forward output is in bit-reversed order; all eval-domain ops are
 coefficient-wise so the order never matters until the inverse transform.
 
-TPU-first structure: a radix-2 butterfly network is split into two phases so
-the vector unit always sees >= 128 contiguous lanes:
+The stages run in two phases so the innermost axis always holds >= 128
+contiguous elements:
 
   * Phase A — early stages (butterfly span t >= 128): ops vectorize over the
     contiguous span directly.
   * Phase B — late stages (span t <= 64): the (N/128, 128) view is
-    transposed once to (128, N/128) so butterflies run across sublanes while
-    the lane axis carries the N/128 independent 128-blocks.
+    transposed once to (128, N/128), so butterflies run along the
+    second-to-last axis while the last axis carries the N/128 independent
+    128-blocks.
+
+This network is the one transform behind ntt()/intt(). The four-step
+digit-plane matmul in ntt/mxu.py computes the same map bit for bit; it
+was measured against this network at the production shape and lost end
+to end (PERF.md), and stays as the tensor-core candidate.
 
 This replaces the per-chunk OpenMP NTT parallelism of the reference's
 PALISADE backend (SURVEY.md C11, ckks.cpp:70) with whole-batch vectorization.
@@ -20,46 +27,14 @@ PALISADE backend (SURVEY.md C11, ckks.cpp:70) with whole-batch vectorization.
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 
 from ..rns.modops import add_mod, sub_mod, mul_mod_shoup
-from . import pallas_ntt
 from .tables import NttTables
 
 _LANE = 128
 _MAX_B_SPAN = 64  # butterfly spans <= this run in transposed layout
-
-
-def _use_fused(tb: NttTables) -> bool:
-    """Opt-in (FHE_FED_TPU_PALLAS=1) fused Pallas BUTTERFLY kernels on TPU.
-
-    Off by default: measured on v5e, XLA's per-stage pipeline beats the fused
-    kernels (fwd 2.4 ms vs 3.8 ms, inv 0.8 ms vs 15.8 ms on a (407, 4, 8192)
-    batch) — the transform is VPU-bound, XLA already overlaps HBM traffic
-    well, and the in-VMEM transposes Mosaic emits are costly. Kept as an
-    alternative backend. (The MXU digit-plane kernel below is a different
-    story — it moves the multiplies off the VPU entirely and wins 5x.)"""
-    if tb.stages is None or not os.environ.get("FHE_FED_TPU_PALLAS"):
-        return False
-    return jax.default_backend() == "tpu"
-
-
-def _use_mxu(tb: NttTables) -> bool:
-    """Default-ON on TPU: the fused MXU digit-plane four-step kernel
-    (ntt/mxu_pallas.py) — measured 0.48 ms fwd / 0.67 ms inv per
-    (204, 5, 8192) batch vs 2.63 / 3.25 ms for the butterfly network
-    (results/mxu_ntt.jsonl), bit-exact. Opt out: FHE_FED_TPU_NO_MXU=1.
-    An EXPLICIT FHE_FED_TPU_PALLAS=1 (the fused-butterfly opt-in) takes
-    precedence over this default — explicit flags beat defaults — so that
-    backend stays reachable without also setting NO_MXU."""
-    if tb.mxu is None or os.environ.get("FHE_FED_TPU_NO_MXU"):
-        return False
-    if os.environ.get("FHE_FED_TPU_PALLAS") and tb.stages is not None:
-        return False
-    return jax.default_backend() == "tpu"
 
 
 def _fwd_stage(x, tab, tab_shoup, q, m, t):
@@ -99,11 +74,6 @@ def ntt(x: jnp.ndarray, tb: NttTables) -> jnp.ndarray:
     n = tb.ring_dim
     L = tb.q.shape[0]
     assert x.shape[-1] == n and x.shape[-2] == L, (x.shape, L, n)
-    if _use_mxu(tb):
-        from . import mxu_pallas
-        return mxu_pallas.ntt_mxu_fused(x, tb.mxu)
-    if _use_fused(tb):
-        return pallas_ntt.ntt_fused(x, tb.stages)
     batch = x.shape[:-2]
 
     # Phase A: spans t = n/2 down to 128.
@@ -172,11 +142,6 @@ def intt(x: jnp.ndarray, tb: NttTables) -> jnp.ndarray:
     n = tb.ring_dim
     L = tb.q.shape[0]
     assert x.shape[-1] == n and x.shape[-2] == L, (x.shape, L, n)
-    if _use_mxu(tb):
-        from . import mxu_pallas
-        return mxu_pallas.intt_mxu_fused(x, tb.mxu)
-    if _use_fused(tb):
-        return pallas_ntt.intt_fused(x, tb.stages)
     batch = x.shape[:-2]
 
     nblk = n // min(n, _LANE)

@@ -24,7 +24,6 @@ import jax.numpy as jnp
 
 from ..rns import primes as primes_mod
 from ..rns import modops
-from . import pallas_ntt
 
 
 def _bitrev(x: int, bits: int) -> int:
@@ -47,14 +46,6 @@ class NttTables:
     itab_shoup: jnp.ndarray   # (L, N)
     ninv: jnp.ndarray         # (L,) N^{-1} mod q
     ninv_shoup: jnp.ndarray   # (L,)
-    # Per-stage expanded twiddles for the fused Pallas kernels (None when the
-    # ring is too small to fuse; the jnp path is used then).
-    stages: pallas_ntt.NttStageTables | None = None
-    # Digit-plane matrices for the fused MXU four-step kernel
-    # (ntt/mxu_pallas.py) — the default TPU transform (5x the butterfly's
-    # throughput, measured). None when the ring violates the four-step
-    # bounds (mxu.mxu_viable).
-    mxu: object = None
 
     @property
     def num_limbs(self) -> int:
@@ -71,9 +62,6 @@ class NttTables:
             itab_shoup=self.itab_shoup[lo:hi],
             ninv=self.ninv[lo:hi],
             ninv_shoup=self.ninv_shoup[lo:hi],
-            stages=(None if self.stages is None
-                    else self.stages.slice_limbs(lo, hi)),
-            mxu=(None if self.mxu is None else self.mxu.slice_limbs(lo, hi)),
         )
 
 
@@ -116,17 +104,6 @@ def make_tables(ring_dim: int, moduli: tuple[int, ...],
         itab[l] = _pow_table(ipsi, q, n)[brv].astype(np.uint32)
         ninv[l] = pow(n, q - 2, q)
     qs = np.asarray(moduli, dtype=np.uint32)
-    from . import mxu as mxu_mod         # deferred: mxu imports _bitrev
-    # Build the MXU digit-plane tables only where the kernel can run:
-    # off-TPU they are dead weight (the host build is object-dtype bignum
-    # loops over ~1M entries plus ~1.3 MB of int8 matrices per context),
-    # and _use_mxu never fires there. Callers that want them elsewhere
-    # (the bit-exactness tests, interpret mode) build them directly via
-    # mxu.make_mxu_tables.
-    import jax as _jax
-    mxu_tb = (mxu_mod.make_mxu_tables(n, tuple(moduli), materialize=False)
-              if (mxu_mod.mxu_viable(n)
-                  and _jax.default_backend() == "tpu") else None)
     out = NttTables(
         ring_dim=n,
         q=qs,
@@ -136,8 +113,6 @@ def make_tables(ring_dim: int, moduli: tuple[int, ...],
         itab_shoup=modops.shoup_precompute(itab, qs[:, None]),
         ninv=ninv,
         ninv_shoup=modops.shoup_precompute(ninv, qs),
-        stages=pallas_ntt.make_stage_tables(n, moduli, tab, itab, ninv),
-        mxu=mxu_tb,
     )
     if materialize:
         from ..utils.devput import device_materialize

@@ -1,19 +1,19 @@
 """Multi-host runtime: jax.distributed init + pod meshes + host feeds.
 
 The reference simulates every party in one process (benchmark.py:459-461)
-and has no distributed backend (SURVEY.md §2 C30, §5.8). On TPU pods the
-runtime is jax.distributed: one Python process per host, all chips in one
-global device list, GSPMD partitioning across them. This module is the
-thin layer that makes the framework's meshes pod-ready:
+and has no distributed backend (SURVEY.md §2 C30, §5.8). Across hosts the
+runtime is jax.distributed: one Python process per host, all devices in
+one global device list, GSPMD partitioning across them. This module is the
+thin layer that makes the framework's meshes multi-host:
 
   * init_distributed()  — bring up (or no-op) the multi-process runtime
-    from standard cluster env vars;
-  * pod_mesh(...)       — a named mesh over ALL global devices with the
-    axis order chosen so the FedAvg fan-in rides DCN once and everything
-    else stays on ICI: hosts map to the OUTERMOST axis ('clients' by
-    default — each host holds whole client ciphertexts and the fan-in
-    psum crosses hosts exactly once), while 'chunks'/'limb'/'coeff'
-    stay within a host's ICI domain;
+    from explicit arguments or standard env vars;
+  * pod_mesh(...)       — a named mesh over ALL global devices. Within a
+    host every device reaches every other at one rate, so the axis order
+    matters only across hosts: jax's global device list is host-major, so
+    the OUTERMOST axis ('clients' by default — each host holds whole
+    client ciphertexts) is the one that crosses hosts, and the fan-in
+    psum crosses the host network exactly once;
   * host_client_array() — build the global stacked-ciphertext array from
     per-host client payloads without gathering everything to one host
     (the host->device feed SURVEY.md §7 flags for 26k-chunk models).
@@ -35,8 +35,9 @@ def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> bool:
     """Initialize jax.distributed from args or standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or a
-    TPU-pod metadata server, which jax autodetects). Returns True if the
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).
+    Pass the coordinator address (e.g. localhost:<port> on one machine),
+    the process count and this process's id. Returns True if the
     multi-process runtime came up, False for the single-process no-op."""
     addr = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     nproc = num_processes if num_processes is not None else int(
@@ -55,7 +56,7 @@ def pod_mesh(axis_sizes: dict[str, int], devices=None) -> Mesh:
     axis_sizes maps axis name -> size, in MAJOR-to-minor order; one axis
     may be -1 (inferred). The first axis varies slowest across the device
     list — with jax's host-major global device order, that places the
-    first axis across hosts (DCN) and later axes within hosts (ICI).
+    first axis across hosts and later axes within a host.
     FedAvg convention: ('clients', 'chunks') or ('clients', 'limb',
     'coeff') with clients first.
     """

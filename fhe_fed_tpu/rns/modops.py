@@ -1,7 +1,7 @@
-"""uint32 modular arithmetic primitives for TPU.
+"""uint32 modular arithmetic primitives.
 
-TPU vector units have no 64-bit integer multiply, so all wide arithmetic is
-built from 32x32 -> (hi, lo) products assembled out of 16-bit half-words.
+All wide arithmetic is built from 32x32 -> (hi, lo) products assembled out
+of 16-bit half-words, in uint32 lanes only (no 64-bit integer types).
 Primes are constrained to (2**30, 2**31) which keeps every intermediate in
 range and leaves one slack bit for lazy add/sub.
 

@@ -1,6 +1,6 @@
 """NTT-friendly prime generation for the RNS modulus chain.
 
-The TPU framework represents all ring elements as uint32 residue limbs, so
+The framework represents all ring elements as uint32 residue limbs, so
 every RNS prime q satisfies 2**30 < q < 2**31 and q ≡ 1 (mod 2N) so that a
 primitive 2N-th root of unity exists (negacyclic NTT).
 

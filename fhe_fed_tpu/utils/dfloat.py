@@ -1,6 +1,6 @@
 """Double-float (two-float) arithmetic in f32 pairs.
 
-TPU has no hardware f64; a (hi, lo) pair of f32 with |lo| <= ulp(hi)/2 gives
+The device path uses no f64; a (hi, lo) pair of f32 with |lo| <= ulp(hi)/2 gives
 ~48 bits of effective mantissa. Used for the exact-CRT decode tail and the
 canonical-embedding FFT (slot packing), where single f32 precision would cap
 CKKS message precision at ~24 bits.

@@ -112,26 +112,6 @@ def test_encode_decode_exact_crt():
     np.testing.assert_allclose(out, vals, rtol=2e-7, atol=1e-11)
 
 
-def test_decode_mxu_exact():
-    """The MXU byte-plane CRT decode (encoding.decode_core_mxu) is
-    bit-exact vs the VPU plane-loop decode for every live-limb count, on
-    uniform random residues (which exercise |v| up to Q/2, the full digit
-    range, and the overflow/inf path)."""
-    from fhe_fed_tpu.ckks import encoding as E
-    p = P.make_params(batch=128, scale_bits=40, mult_depth=2, ring_dim=256)
-    ctx = P.make_context(p)
-    rng = np.random.default_rng(11)
-    for live in range(1, p.chain_len + 1):
-        dc = ctx.dec_consts[live - 1]
-        qs = ctx.q[:live]
-        r = jnp.asarray(rng.integers(
-            0, np.array(p.moduli[:live])[None, :, None],
-            size=(3, live, p.ring_dim)).astype(np.uint32))
-        a = np.asarray(E.decode_core(dc, qs, r, float(p.scale)))
-        b = np.asarray(E.decode_core_mxu(dc, qs, r, float(p.scale)))
-        np.testing.assert_array_equal(a, b)
-
-
 def test_symmetric_encrypt_roundtrip():
     ctx = _small_ctx()
     sk, pk = K.keygen(ctx, seed=7)

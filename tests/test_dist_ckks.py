@@ -154,7 +154,7 @@ def test_full_step_and_collectives(setup):
 def test_sharded_round_n65536():
     """The ring that genuinely exceeds one chip: at N=65536 the working set
     of one NTT batch at production limb counts (~chunks x L x 256 KiB
-    x several plane temporaries) no longer fits a single chip's VMEM, so
+    x several plane temporaries) outgrows a single device's fast memory, so
     the ('limb','coeff') layout is the deployment layout, not an option.
     Same bit-exactness contract as the N=32768 round above, one chunk to
     keep the CPU-mesh run fast."""

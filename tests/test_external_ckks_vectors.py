@@ -132,7 +132,7 @@ def test_seal_public_key_rlwe(seal):
 
 
 # ---------------------------------------------------------------------------
-# Engine tie-in: our TPU NTT realizes the same evaluation map
+# Engine tie-in: our NTT realizes the same evaluation map
 # ---------------------------------------------------------------------------
 
 def test_engine_matches_external_convention():
